@@ -1,7 +1,7 @@
 // Native host-side hot paths — the C++ runtime components the reference
 // keeps in C (SURVEY.md §2.4/§2.6): bit-serial codecs and sequence
 // generators that are branchy/bit-oriented and therefore poor fits for
-// the TPU compute path but hot on the host side (eNB-side test-vector
+// the device compute path but hot on the host side (eNB-side test-vector
 // generation, per-TTI scrambling pregen, control-plane CRCs).
 //
 // Exposed as a plain C ABI for ctypes (no pybind11 in this image).

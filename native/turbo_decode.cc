@@ -1,6 +1,6 @@
 // Native max-log-MAP turbo decoder — the host-side "plain C" decode path
 // (the reference's capability anchor: ">25 Mbps turbo decoding in standard
-// C", README.md:18; the SIMD path maps to the Pallas TPU kernel in
+// C", README.md:18; the SIMD path maps to the Pallas GPU kernel in
 // srsue_tpu/phy/turbo_pallas.py). Also serves as an INDEPENDENT
 // implementation of the BCJR recursions for cross-checking the JAX/Pallas
 // decoders (full non-windowed recursion, distinct code lineage from
@@ -132,7 +132,7 @@ int32_t turbo_decode_maxlog(const float* d, const int32_t* perm,
   const float* t0 = d + k;          // d0 tails
   const float* t1 = d + (k + 4) + k;
   const float* t2 = d + 2 * (k + 4) + k;
-  // tail demultiplex (36.212 §5.1.3.2.2; same as turbo_pallas.decode)
+  // tail demultiplex (36.212 §5.1.3.2.2; same as turbo.decode)
   const float tail1_sys[3] = {t0[0], t2[0], t1[1]};
   const float tail1_par[3] = {t1[0], t0[1], t2[1]};
   const float tail2_sys[3] = {t0[2], t2[2], t1[3]};

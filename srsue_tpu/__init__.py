@@ -1,7 +1,7 @@
-"""srsue_tpu — a TPU-native LTE Release-8 FDD UE framework.
+"""srsue_tpu — an LTE Release-8 FDD UE framework in JAX.
 
 A from-scratch re-design of the capabilities of srsUE (reference:
-/root/reference, see SURVEY.md) for TPU hardware:
+/root/reference, see SURVEY.md) as batched accelerator programs:
 
 * ``srsue_tpu.phy``  — the full DL receive chain and UL transmit chain as
   batched JAX/XLA/Pallas kernels (OFDM, sync, channel estimation,
@@ -11,14 +11,14 @@ A from-scratch re-design of the capabilities of srsUE (reference:
   ``gw`` — the host-side protocol stack orchestrating the device kernels
   (HARQ, random access, logical channels, security, attach).
 * ``srsue_tpu.parallel`` — device-mesh sharding of batched carriers/UEs
-  (the TPU-native replacement of the reference's 2-4 thread TTI pipeline,
+  (the device-mesh replacement of the reference's 2-4 thread TTI pipeline,
   ``ue/src/phy/phch_recv.cc``).
 * ``srsue_tpu.radio`` — radio abstractions (file/IQ-trace radio standing in
   for the reference's UHD front-end, ``ue/src/radio/radio_uhd.cc``).
 
 Everything on the device side is batch-first: arrays carry a leading
 ``[batch, ...]`` axis of independent subframes/carriers/UEs and all shapes
-are static per (bandwidth, MCS) bucket so XLA can tile onto the MXU/VPU.
+are static per (bandwidth, MCS) bucket so XLA compiles one program each.
 """
 
 __version__ = "0.1.0"

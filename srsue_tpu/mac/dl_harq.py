@@ -5,7 +5,7 @@ NDI-toggle new-transmission detection (dl_harq.cc:191-214), softbuffer
 management, ACK generation. The softbuffer is the list of device LLR
 arrays produced by ``PdschCodec.dematch`` — combining across
 retransmissions is element-wise addition on device (dl_harq.cc:164-171
-soft-combine semantics, TPU-shaped).
+soft-combine semantics, batched on device).
 """
 
 from __future__ import annotations

@@ -20,7 +20,7 @@ import numpy as np
 
 
 def parse_args(argv=None):
-    p = argparse.ArgumentParser(description="TPU-native LTE UE")
+    p = argparse.ArgumentParser(description="LTE UE (JAX receive chain)")
     p.add_argument("config", nargs="?", help="ue.conf-style INI file")
     p.add_argument("--iq", help="raw complex64 IQ capture to attach to")
     p.add_argument("--iq-tcp", metavar="HOST:RXPORT[:TXPORT]",
@@ -226,7 +226,10 @@ def run_iq(args) -> int:
 
 
 def main(argv=None) -> int:
+    from .utils.jaxutil import use_compile_cache
+
     args = parse_args(argv)
+    use_compile_cache()
     if args.selftest:
         return run_selftest_inline(args)
     if args.iq or args.iq_tcp:

@@ -1,3 +1,3 @@
-"""Device-mesh parallelism: batched carriers/UEs sharded across a TPU
-slice — the TPU-native replacement of the reference's worker-pool TTI
-pipeline (SURVEY.md §2.8)."""
+"""Device-mesh parallelism: batched carriers/UEs sharded across several
+devices — the replacement of the reference's worker-pool TTI pipeline
+(SURVEY.md §2.8)."""

@@ -4,11 +4,12 @@ noise/RSRP/RSRQ/SNR estimation.
 Reference capability mirrored: srsLTE ``srslte_chest_dl_*`` consumed at
 ue/src/phy/phch_worker.cc:359,793-855 (SNR/RSRP/RSRQ/RSSI/noise queries).
 
-TPU design: interpolation is expressed as two small dense matmuls with
+Design: interpolation is expressed as two small dense matmuls with
 host-precomputed weight matrices — frequency interp W_f [n_sc, n_pilots]
 per CRS symbol, then time interp W_t [n_sym, n_crs_sym] — so the whole
-estimator is (batch x pilots) @ W^T contractions on the MXU plus
-element-wise VPU ops, with zero data-dependent control flow.
+estimator is (batch x pilots) @ W^T contractions plus element-wise ops,
+with zero data-dependent control flow. The contractions run at HIGHEST
+precision: a GPU would otherwise take f32 matmuls in TF32.
 """
 
 from __future__ import annotations
@@ -16,6 +17,7 @@ from __future__ import annotations
 import functools
 import os
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 
@@ -194,7 +196,8 @@ def estimate(cell: Cell, grid: jnp.ndarray, subframe: int, port: int = 0):
     h_f = []
     for i in range(len(syms)):
         w = jnp.asarray(_freq_interp_matrix(cell, port, i))
-        h_f.append(h_in[..., i, :] @ w.T.astype(jnp.complex64))
+        h_f.append(jnp.matmul(h_in[..., i, :], w.T.astype(jnp.complex64),
+                              precision=jax.lax.Precision.HIGHEST))
     h_f = jnp.stack(h_f, axis=-2)  # [..., n_crs_sym, n_sc]
 
     if _TIME_AVG and len(syms) >= 2:
@@ -208,7 +211,7 @@ def estimate(cell: Cell, grid: jnp.ndarray, subframe: int, port: int = 0):
 
     wt = jnp.asarray(_time_interp_matrix(cell, port)).astype(jnp.complex64)
     # [..., n_sym_sf, n_sc] = wt [n_sym, n_crs] @ h_f [..., n_crs, n_sc]
-    h = jnp.einsum("tc,...cs->...ts", wt, h_f)
+    h = jnp.einsum("tc,...cs->...ts", wt, h_f, precision=jax.lax.Precision.HIGHEST)
 
     rsrp = jnp.mean(jnp.abs(h_ls) ** 2, axis=-1)
     return h.astype(jnp.complex64), noise_var.astype(jnp.float32), rsrp

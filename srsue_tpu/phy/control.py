@@ -4,7 +4,7 @@
 Capability parity with srsLTE ``srslte_pdcch_extract_llr`` + blind DCI
 search + ``decode_phich`` + CFI decode (ue/src/phy/phch_worker.cc:246-477).
 
-TPU design: the REG/CCE geometry (including the quadruplet sub-block
+Design: the REG/CCE geometry (including the quadruplet sub-block
 interleaver and cell-ID cyclic shift) is folded into host-precomputed
 per-CCE RE index tables; the device sees only:
 
@@ -19,6 +19,7 @@ from __future__ import annotations
 
 import functools
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 
@@ -194,7 +195,7 @@ def pcfich_decode(cell: Cell, grid_eq: jnp.ndarray, nv_eff, subframe: int):
     llr = modulation.demodulate_soft(y, 2, nv)  # [..., 32]
     s = jnp.asarray((1.0 - 2.0 * _cfi_scramble(cell, subframe)).astype(np.float32))
     cw = jnp.asarray((1.0 - 2.0 * _CFI_CW).astype(np.float32))  # [3, 32]
-    scores = (llr * s) @ cw.T  # [..., 3]
+    scores = jnp.matmul(llr * s, cw.T, precision=jax.lax.Precision.HIGHEST)  # [..., 3]
     return jnp.argmax(scores, axis=-1) + 1, scores
 
 
@@ -240,7 +241,7 @@ def phich_decode(cell: Cell, grid_eq: jnp.ndarray, subframe: int, group: int, ns
     flat = grid_eq.reshape(grid_eq.shape[:-2] + (-1,))
     y = cgather(flat, jnp.asarray(_phich_re(cell, group)), axis=-1)  # [..., 12]
     ref = phich_symbols(cell, subframe, group, nseq, ack=True)
-    m = jnp.real(y @ jnp.conj(jnp.asarray(ref)))
+    m = jnp.real(jnp.matmul(y, jnp.conj(jnp.asarray(ref)), precision=jax.lax.Precision.HIGHEST))
     return m  # > 0 -> ACK
 
 

@@ -6,10 +6,10 @@ reference consumes this through srsLTE's Viterbi inside
 ``srslte_pbch_decode`` / ``srslte_pdcch_extract_llr`` + DCI blind search
 (ue/src/phy/phch_recv.cc:96-264, ue/src/phy/phch_worker.cc:278-326).
 
-TPU design
-----------
+Design
+------
 The decoder is a ``lax.scan`` over trellis steps with the 64 path metrics
-and the batch axis laid out as a single [B, 64] f32 array — pure VPU
+and the batch axis laid out as a single [B, 64] f32 array — dense
 add-compare-select with no data-dependent control flow. Blind DCI search
 batches all (candidate location, aggregation, DCI-size) hypotheses in B,
 so one decoder call covers the whole search space (SURVEY.md §7 hard
@@ -100,9 +100,9 @@ def decode(llrs: jnp.ndarray) -> jnp.ndarray:
       concat-view select. This removes the [2n, B, 64] decision store
       AND the entire n-step traceback scan — the result is read
       directly from the winning state's registers.
-    * The scan body processes CHUNK=8 trellis steps (metric drift over
-      8 steps is far below f32 resolution, so one normalization per
-      chunk suffices) — 8x fewer loop-overhead-dominated scan steps.
+    * The scan body processes CHUNK trellis steps (metric drift over a
+      chunk is far below f32 resolution, so one normalization per
+      chunk suffices) — CHUNK-fold fewer scan steps.
     """
     out_pm1, _, _, _ = _tables()
     out_pm1 = jnp.asarray(out_pm1)           # [128, 3]
@@ -113,13 +113,11 @@ def decode(llrs: jnp.ndarray) -> jnp.ndarray:
     # step count is a CHUNK multiple (the pad steps see zero LLRs = no
     # metric information; they only warm the wrap-around state, which is
     # exactly what the first pass is for)
-    # 8 trellis steps per scan iteration on TPU (measured best there);
-    # 2 on CPU — LLVM code size grows with the unrolled body, and the
-    # many per-shape Viterbi instances of one OTA test were enough to
-    # exhaust XLA:CPU's executable code memory (r5: segfault inside the
-    # compilation-cache load in test_ota_handover; conftest's per-test
-    # clear cannot help when a single test crosses the budget).
-    CHUNK = 8 if jax.default_backend() == "tpu" else 2
+    # 2 trellis steps per scan iteration: LLVM code size grows with the
+    # unrolled body, and the many per-shape Viterbi instances of one OTA
+    # test were enough to exhaust XLA:CPU's executable code memory (r5:
+    # segfault inside the compilation-cache load in test_ota_handover).
+    CHUNK = 2
     total = 2 * n
     pad = (-total) % CHUNK
     llr2 = jnp.concatenate(
@@ -127,7 +125,7 @@ def decode(llrs: jnp.ndarray) -> jnp.ndarray:
 
     def one_step(pm, surv, llr_k):
         # branch metrics for all 128 words: [B, 128]
-        bm = llr_k @ out_pm1.T
+        bm = jnp.matmul(llr_k, out_pm1.T, precision=jax.lax.Precision.HIGHEST)
         # candidates via the concat view: cand[:, ns, t] =
         # pm[:, (2ns+t) & 63] + bm[:, 2ns+t]
         pmpm = jnp.concatenate([pm, pm], axis=-1).reshape(B, NSTATES, 2)

@@ -6,7 +6,7 @@ Two implementations sharing one precompute:
   uses), so crc(m) = XOR of x^(n-1-i+L) mod g over set bits i. We keep a
   growing table of x^k mod g and reduce with a single vectorized XOR.
 * Device (JAX): the same linear map expressed as a {0,1} matrix M[n, L]
-  so a batch of bit-vectors is checked with ONE MXU matmul:
+  so a batch of bit-vectors is checked with ONE matmul:
   crc = (bits @ M) mod 2. This is what makes on-device early-exit CRC
   checks in the turbo decoder cheap (reference tracks/caps iterations via
   ``srslte_sch_set_max_noi``, ue/src/phy/phch_worker.cc:87-89).

@@ -3,7 +3,7 @@ combining — the capability surface of srsLTE's predecoding inside
 ``srslte_pdsch_decode_rnti`` (README.md:15,17: "ZF and MMSE equalizer",
 "transmission mode 1 and 2").
 
-All functions are element-wise over [..., n_re] arrays (VPU-only, fuse
+All functions are element-wise over [..., n_re] arrays (they fuse
 with the demapper). They return (x_hat, nv_eff): the equalized symbols
 and the per-RE effective noise variance to feed the max-log demapper —
 this pairing keeps the LLRs correctly scaled for HARQ soft combining.

@@ -1,14 +1,14 @@
 """Constellation mapping and max-log soft demapping (36.211 §7.1).
 
-TPU-first design notes
-----------------------
+Design notes
+------------
 * The mapper is a gather from a constant constellation table — XLA turns
   this into a vectorized table lookup; the bit->symbol-index packing is a
   small matmul against powers of two.
 * The demapper is **exact max-log**: per bit, LLR = (min_{s: b=1}|y-s|^2 -
   min_{s: b=0}|y-s|^2) / sigma^2, computed by broadcasting against the 2/4/8
   PAM levels per axis (Gray mapping makes I and Q separable). This stays
-  fully element-wise on the VPU with a tiny constant table — no per-symbol
+  fully element-wise with a tiny constant table — no per-symbol
   control flow, so it fuses into the equalizer output.
 
 Reference parity target: srsLTE soft demapper consumed by

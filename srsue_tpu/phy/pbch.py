@@ -5,7 +5,7 @@ consumed by the reference's cell search (ue/src/phy/phch_recv.cc:96-264).
 
 The 1920-bit (normal CP) PBCH codeword spans 4 radio frames (40 ms TTI);
 a UE that just woke up does not know which quarter it is observing, nor
-the eNB port count. TPU design: ALL hypotheses (4 quarter offsets x port
+the eNB port count. Design: ALL hypotheses (4 quarter offsets x port
 configs) are decoded as one batched Viterbi call — no sequential trial
 loop — and the CRC16 antenna-mask check picks the winner on device.
 """

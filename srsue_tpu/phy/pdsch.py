@@ -21,10 +21,12 @@ from __future__ import annotations
 
 import functools
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 
-from . import crc, modulation, ratematch, regrid, segmentation, seq, turbo
+from . import (crc, modulation, ratematch, regrid, segmentation, seq, turbo,
+               turbo_pallas)
 from .cell import Cell, DlGrant
 from ..utils.jaxutil import cgather
 
@@ -32,24 +34,12 @@ FILLER_LLR = 1e4  # known-zero filler bits: saturated "bit 0" prior
 
 
 def _turbo_decode(d, k, n_iters, crc_mat, early_exit=True):
-    """Pick the BCJR backend: the hand-written Pallas kernel on TPU (2x
-    the pure-JAX windowed decoder at production batch sizes — it keeps
-    alphas in VMEM scratch instead of round-tripping them through HBM),
-    the lax.scan decoder elsewhere (CPU tests, and K with no valid
-    window)."""
-    import jax
-    import os
-
-    window = turbo.pick_window(k)
-    if (
-        window is not None
-        and jax.default_backend() == "tpu"
-        and os.environ.get("SRSUE_TPU_NO_PALLAS", "0") != "1"
-    ):
-        from . import turbo_pallas
-
+    """Pick the BCJR backend: the fused Pallas kernel on a GPU (one launch
+    per half-iteration instead of a launch per trellis step), the
+    lax.scan decoder elsewhere and for K too short for windows."""
+    if jax.default_backend() == "gpu" and turbo.pick_window(k) is not None:
         return turbo_pallas.decode(d, k, n_iters=n_iters, crc_mat=crc_mat,
-                                   window=window, early_exit=early_exit)
+                                   early_exit=early_exit)
     return turbo.decode(d, k, n_iters=n_iters, crc_mat=crc_mat,
                         early_exit=early_exit)
 

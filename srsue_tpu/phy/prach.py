@@ -5,7 +5,7 @@ preambles at cell init, CFO-corrects and scales at send time).
 Format 0 (the FDD default): N_zc = 839, 1.25 kHz subcarrier spacing,
 T_cp = 3168 Ts, T_seq = 24576 Ts (Ts = 1/30.72 MHz), occupying 6 PRB.
 
-TPU design: preambles are host-precomputed frequency-domain ZC roots
+Design: preambles are host-precomputed frequency-domain ZC roots
 (config-time, mirroring prach.cc:88-97); the time-domain waveform is one
 zero-padded IFFT at the cell's sample rate; detection is a batched
 matched filter over all 64 preambles — one matmul [n_fft_prach] x

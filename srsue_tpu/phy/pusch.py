@@ -7,7 +7,7 @@ Reference capability: ``srslte_ue_ul_pusch_encode_rnti_softbuffer`` +
 ``pregen_signals`` (ue/src/phy/phch_worker.cc:545-590, SURVEY.md hot
 loop 3).
 
-TPU design: the DFT precoding is a batched FFT over the allocated
+Design: the DFT precoding is a batched FFT over the allocated
 subcarriers (M_sc = 12*n_prb, always 2^a*3^b*5^c by spec — XLA's FFT
 handles mixed radix); encoding is host-side bit work per TB (control
 plane) feeding one device program for the symbol pipeline. UL DMRS uses
@@ -22,7 +22,6 @@ import functools
 import jax.numpy as jnp
 import numpy as np
 
-from . import fft as _fft
 from . import modulation, ratematch, segmentation, seq, turbo
 from .cell import Cell, UlGrant
 
@@ -271,7 +270,7 @@ class PuschCodec:
         h2 = jnp.maximum(jnp.abs(h) ** 2, 1e-12)[..., None, :]
         x_eq = y * jnp.conj(h)[..., None, :] / h2
         # IDFT (undo precoding)
-        x_td = _fft.ifft(x_eq, axis=-1) * np.sqrt(m_sc)
+        x_td = jnp.fft.ifft(x_eq, axis=-1) * np.sqrt(m_sc)
         syms = x_td.reshape(x_td.shape[:-2] + (-1,))
         nv_eff = noise_var / h2[..., 0, :]
         nv_full = jnp.repeat(nv_eff[..., None, :], len(data_syms), axis=-2

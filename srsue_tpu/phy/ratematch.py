@@ -1,7 +1,7 @@
 """Rate matching / dematching — 36.212 §5.1.4 (turbo §5.1.4.1, conv §5.1.4.2).
 
 The reference reaches this inside ``srslte_pdsch_decode_rnti`` /
-``srslte_pdcch_*`` (SURVEY.md §2.1). TPU design: all interleaving and
+``srslte_pdcch_*`` (SURVEY.md §2.1). Design: all interleaving and
 circular-buffer selection is reduced to **host-precomputed index maps**
 (cached per static (K, E, rv) bucket). On device:
 

@@ -7,8 +7,8 @@ RT thread and hands each to a worker-pool thread. Here the loop is a
 host generator over an IQ stream: alignment/CFO state advances per
 subframe, and the per-subframe DSP is the jitted UeDl programs —
 batching across subframes happens naturally by accumulating aligned
-subframes and decoding them as one device batch (the TPU replacement of
-the 2-4 thread pipeline).
+subframes and decoding them as one device batch (the replacement of the
+2-4 thread pipeline).
 """
 
 from __future__ import annotations

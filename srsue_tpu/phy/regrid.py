@@ -3,7 +3,7 @@ regions, and PDSCH RE enumeration per (cell, subframe, cfi, allocation).
 
 Everything here is host-side numpy, cached per static config, producing
 flat index arrays into grid[..., n_sym_sf, n_sc] (flattened as
-sym * n_sc + sc). Device code is then pure gather/scatter — the TPU
+sym * n_sc + sc). Device code is then pure gather/scatter — the batched
 replacement for srsLTE's per-RE mapping loops behind
 ``srslte_pdsch_decode_rnti`` / ``srslte_ue_dl_cfg_grant``
 (ue/src/phy/phch_worker.cc:328-374).

@@ -4,14 +4,14 @@ estimation (36.211 §6.11).
 Capability parity with srsLTE ``ue_sync`` / ``ue_cellsearch`` consumed at
 ue/src/phy/phch_recv.cc:96-264 (cell_search -> sync_sfn -> track loop).
 
-TPU design (no data-dependent control flow inside jit):
+Design (no data-dependent control flow inside jit):
 * PSS search = FFT-domain circular cross-correlation against the 3 root
   replicas, batched over roots and over search windows: one batched FFT +
   elementwise multiply + IFFT, then a normalized peak pick (argmax) — the
   classic matched filter expressed as dense batched spectral ops.
 * SSS identification = one [62] x [62, 2*168] matmul over all candidate
   (N_id_1, half-frame) sequences -> argmax. The "brute force over a tiny
-  table as a single MXU matmul" pattern replaces srsLTE's sequential
+  table as a single matmul" pattern replaces srsLTE's sequential
   m0/m1 decimation search.
 * CFO: cyclic-prefix autocorrelation (fractional CFO in subcarrier units)
   + PSS-phase refinement; correction is one elementwise complex rotate.
@@ -25,7 +25,6 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from . import fft as _fft
 from . import seq
 from .cell import Cell
 
@@ -61,9 +60,9 @@ def pss_correlate(samples: jnp.ndarray, nfft: int = SEARCH_NFFT) -> jnp.ndarray:
     )
     # circular correlation via spectral multiply; index shift so that
     # out[t] = sum_k x[t+k] conj(rep[k])
-    x_f = _fft.fft(samples, axis=-1)
-    r_f = _fft.fft(jnp.asarray(reps), axis=-1)
-    corr = _fft.ifft(x_f[..., None, :] * r_f, axis=-1)
+    x_f = jnp.fft.fft(samples, axis=-1)
+    r_f = jnp.fft.fft(jnp.asarray(reps), axis=-1)
+    corr = jnp.fft.ifft(x_f[..., None, :] * r_f, axis=-1)
     corr = jnp.roll(corr, -(nfft - 1), axis=-1)
     # normalize by local window energy (approx: global RMS keeps it cheap)
     rms = jnp.sqrt(jnp.mean(jnp.abs(samples) ** 2, axis=-1) + 1e-12)
@@ -118,7 +117,8 @@ def sss_identify(sss_fd: jnp.ndarray, n_id_2) -> tuple[jnp.ndarray, jnp.ndarray,
     Returns (n_id_1, is_sf5, score).
     """
     bank = jnp.asarray(_sss_bank())[n_id_2]  # [62, 336]
-    m = jnp.real(sss_fd) @ bank  # SSS is real-valued (+-1) per subcarrier
+    # SSS is real-valued (+-1) per subcarrier
+    m = jnp.matmul(jnp.real(sss_fd), bank, precision=jax.lax.Precision.HIGHEST)
     best = jnp.argmax(jnp.abs(m), axis=-1)
     return best % 168, best >= 168, jnp.take_along_axis(
         jnp.abs(m), best[..., None], axis=-1
@@ -163,7 +163,7 @@ def decimate(samples: jnp.ndarray, decim: int) -> jnp.ndarray:
     def filt(x):
         xp = jnp.pad(x, [(0, 0)] * (x.ndim - 1) + [(k // 2, k - 1 - k // 2)])
         win = jnp.stack([xp[..., i : i + x.shape[-1]] for i in range(k)], axis=-1)
-        return win @ taps
+        return jnp.matmul(win, taps, precision=jax.lax.Precision.HIGHEST)
 
     out = jax.lax.complex(filt(jnp.real(samples)), filt(jnp.imag(samples)))
     return out[..., ::decim]

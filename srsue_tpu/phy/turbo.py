@@ -3,15 +3,14 @@ encoder + batched max-log-MAP (BCJR) decoder.
 
 This is the dominant DL hot loop (SURVEY.md §3.2 "DSP hot loop 2"); the
 reference hits it through ``srslte_pdsch_decode_rnti`` with SSE/AVX
-SIMD (>100 Mbps, README.md:18). TPU design:
+SIMD (>100 Mbps, README.md:18). Design:
 
-* Code blocks are batched on the leading axis; the BCJR state dimension
-  (8) rides the sublanes and the batch rides the lanes, so every
-  add-compare-select is a dense [B, 8]-shaped VPU op.
-* Forward/backward recursions are ``lax.scan``s over the trellis — no
-  data-dependent control flow; iteration count is static (early-exit is
-  implemented as masked no-ops driven by an on-device CRC matmul, see
-  pdsch.py) so one compiled program serves all SNRs.
+* Code blocks are batched on the leading axis, so every
+  add-compare-select is one dense [B, 8]-shaped array op.
+* Forward/backward recursions are ``lax.scan``s over the trellis, split
+  into windows that run in parallel (``_bcjr_half_windowed``). On a GPU
+  ``turbo_pallas`` replaces that half-iteration with one fused kernel;
+  the iteration loop, interleaving and CRC early exit below are shared.
 * The QPP interleave/deinterleave is a device gather with host-cached
   index tables per block size K.
 
@@ -257,12 +256,7 @@ def _bcjr_half_windowed(sys_llr, par_llr, apriori, tail_sys, tail_par,
             + 0.5 * lp_k[..., None, None] * par_sign
         )
 
-    # window-0 alpha is exact (trellis starts in state 0)
-    a0 = jnp.where(
-        jnp.arange(W)[None, :, None] == 0,
-        jnp.full((8,), _NEG, jnp.float32).at[0].set(0.0),
-        alpha_b[:, :, :],
-    )
+    a0, b0 = _window_inits(alpha_b, beta_b, tail_sys, tail_par)
 
     def fwd(alpha, x):
         lin_k, lp_k = x  # [B, W]
@@ -276,21 +270,6 @@ def _bcjr_half_windowed(sys_llr, par_llr, apriori, tail_sys, tail_par,
     alpha_last, alphas = jax.lax.scan(fwd, a0, xs)
     alphas = jnp.moveaxis(alphas, 0, 2)  # [B, W, lw, 8]
 
-    # NII: next iteration, window w starts from this iteration's final
-    # alpha of window w-1
-    new_alpha_b = jnp.concatenate(
-        [jnp.zeros((B, 1, 8), jnp.float32), alpha_last[:, :-1, :]], axis=1
-    )
-
-    # beta init: window W-1 from the tail termination (exact); others from
-    # the carried boundary (previous iteration's window w+1 first beta)
-    bt = _tail_beta(tail_sys, tail_par, B)
-    b0 = jnp.where(
-        jnp.arange(W)[None, :, None] == W - 1,
-        bt[:, None, :],
-        beta_b,
-    )
-
     def bwd(beta, x):
         lin_k, lp_k = x
         g = gamma_k(lin_k, lp_k)
@@ -303,15 +282,32 @@ def _bcjr_half_windowed(sys_llr, par_llr, apriori, tail_sys, tail_par,
     beta_first, ms = jax.lax.scan(bwd, b0, xs_rev)
     ms = jnp.moveaxis(ms[::-1], 0, 2)  # [B, W, lw, 8, 2]
 
-    new_beta_b = jnp.concatenate(
-        [beta_first[:, 1:, :], jnp.zeros((B, 1, 8), jnp.float32)], axis=1
-    )
-
     full = alphas[..., None] + ms
     l0 = jnp.max(full[..., 0], axis=-1)
     l1 = jnp.max(full[..., 1], axis=-1)
     post = (l0 - l1).reshape(B, K)
-    return post - Lin, new_alpha_b, new_beta_b
+    return (post - Lin,) + _chain_boundaries(alpha_last, beta_first)
+
+
+def _window_inits(alpha_b, beta_b, tail_sys, tail_par):
+    """Initial alpha/beta [B, W, 8] of every window: window 0 starts in
+    state 0 and window W-1 from the trellis termination (both exact);
+    the others from the boundaries carried from the previous iteration."""
+    B, W, _ = alpha_b.shape
+    w = jnp.arange(W)[None, :, None]
+    known0 = jnp.full((8,), _NEG, jnp.float32).at[0].set(0.0)
+    a0 = jnp.where(w == 0, known0, alpha_b)
+    b0 = jnp.where(w == W - 1,
+                   _tail_beta(tail_sys, tail_par, B)[:, None, :], beta_b)
+    return a0, b0
+
+
+def _chain_boundaries(alpha_last, beta_first):
+    """Next-iteration initialisation: window w starts from this
+    iteration's final alpha of window w-1 and final beta of window w+1."""
+    z = jnp.zeros_like(alpha_last[:, :1])
+    return (jnp.concatenate([z, alpha_last[:, :-1]], axis=1),
+            jnp.concatenate([beta_first[:, 1:], z], axis=1))
 
 
 def _bcjr_half(sys_llr, par_llr, apriori, tail_sys, tail_par):
@@ -417,6 +413,7 @@ def decode(
     window: int | None = None,
     auto_window: bool = True,
     early_exit: bool = True,
+    half=None,
 ):
     """Batched turbo decode.
 
@@ -429,9 +426,11 @@ def decode(
 
     window: windowed-BCJR window length (must divide K): cuts the scan
     length from K to `window` by running K/window windows in parallel
-    with next-iteration-initialized boundaries — the TPU-shaped
-    parallelism for the trellis (SURVEY.md §7 hard part 1). auto_window
-    enables it for large K.
+    with next-iteration-initialized boundaries (SURVEY.md §7 hard part
+    1). auto_window enables it for large K.
+    half: the windowed half-iteration, with the signature of
+    ``_bcjr_half_windowed`` (the default); ``turbo_pallas`` passes its
+    kernel here.
     """
     B = d_llrs.shape[0]
     if window is None and auto_window:
@@ -490,13 +489,14 @@ def decode(
         return hard, iters_used, ok
 
     W = k // window
+    half = half or _bcjr_half_windowed
 
     def body_w(carry, _):
         le21, done, iters_used, hard_prev, ab1, bb1, ab2, bb2 = carry
-        le12, ab1n, bb1n = _bcjr_half_windowed(
+        le12, ab1n, bb1n = half(
             sys1, par1, le21, tail1_sys, tail1_par, ab1, bb1, window
         )
-        le21_raw, ab2n, bb2n = _bcjr_half_windowed(
+        le21_raw, ab2n, bb2n = half(
             sys2, par2, le12[:, perm], tail2_sys, tail2_par, ab2, bb2, window
         )
         le21_new = le21_raw[:, inv]

@@ -3,7 +3,7 @@ format 2 carrier (36.211 §5.4.2).
 
 The (20, A<=13) Reed-Muller-style code from 36.212 Table 5.2.3.3-1.
 Decoding is a batched correlation against all 2^A codewords (A<=11 in
-practice for CQI) — one matmul, the TPU-shaped ML decode.
+practice for CQI) — one matmul, the batched ML decode.
 """
 
 from __future__ import annotations

@@ -3,7 +3,7 @@
 
 ``NativeFileRadio`` implements the same `Radio` contract as FileRadio
 but with the reference's runtime shape (SURVEY.md §2.5): a C++ PREFETCH
-THREAD streams the capture file into a lock-free ring while Python/TPU
+THREAD streams the capture file into a lock-free ring while Python/device
 work proceeds (the UHD RX streamer role, phch_recv.cc:318-358), and TX
 goes through the native in-order timed-commit queue (the tx mutex ring,
 phch_common.cc:210-240) which zero-pads burst gaps and counts LATE

@@ -6,20 +6,106 @@ liblte/src/liblte_security.cc:257-560).
 * 128-EEA2: AES-CTR ciphering; EEA0 = null cipher.
 * Milenage: f1/f1*/f2/f3/f4/f5/f5* on AES-128 (35.206).
 
-AES core via the `cryptography` package (the reference's polarssl role).
+AES-128 core (FIPS-197, encryption direction only, which is all that
+CMAC, CTR and Milenage use) in this module: the reference's polarssl
+role, with no third-party dependency.
 """
 
 from __future__ import annotations
 
+import functools
 import hmac
 import hashlib
 
-from cryptography.hazmat.primitives.ciphers import Cipher, algorithms, modes
+
+# ---------------------------------------------------------------------------
+# AES-128 — FIPS-197 (T-table form: one table lookup per byte and round)
+# ---------------------------------------------------------------------------
+
+
+def _aes_tables():
+    exp = [0] * 512  # GF(2^8) antilog over generator 3, doubled for mod-free
+    log = [0] * 256
+    x = 1
+    for i in range(255):
+        exp[i] = exp[i + 255] = x
+        log[x] = i
+        x ^= (x << 1) ^ (0x11B if x & 0x80 else 0)  # x *= 3
+    sbox = [0] * 256
+    for a in range(256):
+        inv = exp[255 - log[a]] if a else 0
+        b = inv
+        for r in range(1, 5):
+            b ^= ((inv << r) | (inv >> (8 - r))) & 0xFF
+        sbox[a] = b ^ 0x63
+
+    def mul(a, c):
+        return exp[log[a] + log[c]] if a and c else 0
+
+    te = [[0] * 256 for _ in range(4)]
+    for a in range(256):
+        s_ = sbox[a]
+        w = (mul(s_, 2) << 24) | (s_ << 16) | (s_ << 8) | mul(s_, 3)
+        for j in range(4):  # Te_j = Te_0 rotated right by 8*j bits
+            te[j][a] = ((w >> (8 * j)) | (w << (32 - 8 * j))) & 0xFFFFFFFF
+    return sbox, te
+
+
+_SBOX, _TE = _aes_tables()
+
+
+@functools.lru_cache(maxsize=64)
+def _aes_key_schedule(key: bytes) -> tuple[int, ...]:
+    """44 round-key words of AES-128 (FIPS-197 §5.2)."""
+    if len(key) != 16:
+        raise ValueError(f"AES-128 key must be 16 bytes, got {len(key)}")
+    w = [int.from_bytes(key[4 * i : 4 * i + 4], "big") for i in range(4)]
+    rcon = 1
+    for i in range(4, 44):
+        t = w[i - 1]
+        if i % 4 == 0:
+            t = ((t << 8) | (t >> 24)) & 0xFFFFFFFF
+            t = ((_SBOX[t >> 24] << 24) | (_SBOX[(t >> 16) & 0xFF] << 16)
+                 | (_SBOX[(t >> 8) & 0xFF] << 8) | _SBOX[t & 0xFF])
+            t ^= rcon << 24
+            rcon = (rcon << 1) ^ (0x11B if rcon & 0x80 else 0)
+        w.append(w[i - 4] ^ t)
+    return tuple(w)
 
 
 def _aes_ecb(key: bytes, block: bytes) -> bytes:
-    c = Cipher(algorithms.AES(key), modes.ECB()).encryptor()
-    return c.update(block) + c.finalize()
+    """AES-128 encryption of one 16-byte block."""
+    if len(block) != 16:
+        raise ValueError(f"AES block must be 16 bytes, got {len(block)}")
+    rk = _aes_key_schedule(bytes(key))
+    t0, t1, t2, t3 = _TE
+    s = [int.from_bytes(block[4 * i : 4 * i + 4], "big") ^ rk[i]
+         for i in range(4)]
+    for r in range(1, 10):
+        s = [t0[s[c] >> 24] ^ t1[(s[(c + 1) % 4] >> 16) & 0xFF]
+             ^ t2[(s[(c + 2) % 4] >> 8) & 0xFF] ^ t3[s[(c + 3) % 4] & 0xFF]
+             ^ rk[4 * r + c] for c in range(4)]
+    sb = _SBOX
+    out = b""
+    for c in range(4):
+        v = ((sb[s[c] >> 24] << 24) | (sb[(s[(c + 1) % 4] >> 16) & 0xFF] << 16)
+             | (sb[(s[(c + 2) % 4] >> 8) & 0xFF] << 8)
+             | sb[s[(c + 3) % 4] & 0xFF]) ^ rk[40 + c]
+        out += v.to_bytes(4, "big")
+    return out
+
+
+def aes_ctr(key: bytes, iv: bytes, msg: bytes) -> bytes:
+    """AES-128 in counter mode (SP 800-38A): the 128-bit counter block
+    starts at `iv` and increments big-endian modulo 2^128."""
+    ctr = int.from_bytes(iv, "big")
+    out = bytearray(len(msg))
+    for off in range(0, len(msg), 16):
+        ks = _aes_ecb(key, ctr.to_bytes(16, "big"))
+        chunk = msg[off : off + 16]
+        out[off : off + len(chunk)] = bytes(a ^ b for a, b in zip(chunk, ks))
+        ctr = (ctr + 1) & ((1 << 128) - 1)
+    return bytes(out)
 
 
 # ---------------------------------------------------------------------------
@@ -114,8 +200,7 @@ def eia2(key: bytes, count: int, bearer: int, direction: int, msg: bytes) -> byt
 def eea2(key: bytes, count: int, bearer: int, direction: int, msg: bytes) -> bytes:
     """128-EEA2 AES-CTR cipher (encrypt == decrypt)."""
     iv = count.to_bytes(4, "big") + bytes([(bearer << 3) | (direction << 2)]) + b"\x00" * 11
-    c = Cipher(algorithms.AES(key), modes.CTR(iv)).encryptor()
-    return c.update(msg) + c.finalize()
+    return aes_ctr(key, iv, msg)
 
 
 def eea0(key: bytes, count: int, bearer: int, direction: int, msg: bytes) -> bytes:

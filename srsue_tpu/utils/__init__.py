@@ -1,3 +1,3 @@
-"""Common runtime utilities (the TPU build's analogue of the reference's
-ue/src/common: config, logging, metrics, buffer/packet helpers, JAX shims).
+"""Common runtime utilities (the analogue of the reference's
+ue/src/common: config, logging, metrics, buffer/packet helpers, JAX helpers).
 """

@@ -14,8 +14,7 @@ from srsue_tpu.utils.trace import StageTimer, Trace
 
 def test_cli_iq_attach(tmp_path):
     # build 4 frames of a live 1.4 MHz cell (reuse the coldstart builder)
-    sys.path.insert(0, "tests")
-    from test_coldstart import _build_downlink
+    from srsue_tpu.enb.capture import build_downlink as _build_downlink
 
     cell = Cell(n_prb=6, cell_id=151)
     td, _, _ = _build_downlink(cell, n_frames=4, snr_db=12)
@@ -38,8 +37,7 @@ def test_cli_iq_attach(tmp_path):
 def test_cli_iq_data_decode(tmp_path):
     """--rnti mode: the app decodes C-RNTI PDSCH data in the steady loop
     (the streaming-receiver surface)."""
-    sys.path.insert(0, "tests")
-    from test_coldstart import _build_downlink
+    from srsue_tpu.enb.capture import build_downlink as _build_downlink
 
     cell = Cell(n_prb=6, cell_id=77)
     td, _, _ = _build_downlink(cell, n_frames=4, snr_db=15, crnti=0x4601,

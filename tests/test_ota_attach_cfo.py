@@ -16,7 +16,7 @@ import numpy as np
 import pytest
 
 from srsue_tpu.phy import sync
-from tests.test_harq_ota import _mk
+from test_harq_ota import _mk
 
 
 def _rot(cell, wf, tti, cfo_norm):

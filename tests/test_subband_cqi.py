@@ -11,7 +11,7 @@ import numpy as np
 import pytest
 
 from srsue_tpu.phy import ue_ul_ctrl as uc
-from tests.test_harq_ota import _attach, _mk
+from test_harq_ota import _attach, _mk
 
 
 def test_subband_schedule_and_payload():

@@ -17,7 +17,7 @@ from srsue_tpu.phy.cell import Cell
 from srsue_tpu.phy.receiver import Receiver
 from srsue_tpu.radio import ArrayRadio
 from srsue_tpu.utils.jaxutil import to_host
-from tests.test_coldstart import _build_downlink
+from srsue_tpu.enb.capture import build_downlink as _build_downlink
 
 
 def _resample(x: np.ndarray, ratio: float) -> np.ndarray:

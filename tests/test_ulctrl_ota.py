@@ -18,7 +18,7 @@ import pytest
 from srsue_tpu.phy import ra
 from srsue_tpu.phy.ue_ul_ctrl import cqi_period_offset
 from srsue_tpu.phy import srs as srsmod
-from tests.test_harq_ota import _attach, _mk
+from test_harq_ota import _attach, _mk
 
 
 @pytest.mark.slow

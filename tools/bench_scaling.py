@@ -2,9 +2,9 @@
 mesh (BASELINE.md: "samples/s scaling efficiency measured at 1 chip,
 1 host, and N>=2 hosts").
 
-Only one physical TPU chip is reachable in this environment, so the mesh
-is the 8-device virtual CPU platform (the same stand-in SURVEY.md §4
-prescribes for pod slices). IMPORTANT caveat baked into the numbers: the
+The mesh is the 8-device virtual CPU platform (the stand-in SURVEY.md §4
+prescribes for several devices); `python chip_smoke.py --four` runs the
+sharded paths on four cards. IMPORTANT caveat baked into the numbers: the
 virtual devices SHARE this host's 2 physical cores, so ideal wall-clock
 speedup is capped at 2x regardless of mesh size — raw `efficiency`
 (t1/(tN*N)) necessarily collapses for N > 2 and says nothing about the
@@ -18,7 +18,7 @@ sharding. Two honest readings are reported per mesh size:
                       overhead beyond the hardware limit.
 
 Two configs: 5 MHz mid-shape (fast) and the FLAGSHIP 20 MHz max-TBS
-shape (padding/VMEM/collective sizes of the real deployment; 2 forced
+shape (padding/collective sizes of the real deployment; 2 forced
 turbo iterations bound the CPU cost — iteration count does not change
 the sharding geometry).
 
@@ -35,12 +35,6 @@ os.environ["XLA_FLAGS"] = (
     + " --xla_force_host_platform_device_count=8"
 ).strip()
 os.environ["JAX_PLATFORMS"] = "cpu"
-# Use the TPU compute path (matmul-DFT) on the virtual mesh: the
-# native-FFT HLO op cannot be SPMD-partitioned on the batch axis, so
-# GSPMD inserts a full-grid all-gather that the real deployment never
-# executes (r5 finding from the collective audit below). The matmul
-# path shards cleanly and IS what runs on TPU.
-os.environ.setdefault("SRSUE_TPU_MATMUL_FFT", "1")
 
 import numpy as np  # noqa: E402
 
